@@ -1,21 +1,16 @@
 #!/usr/bin/env python
 """Batch-scaling benchmark: throughput vs ensemble size, both precisions.
 
-B=4096 is the measured VMEM knee of the double-float kernels on v5e —
-without chunking, larger batches REGRESS (the df gather intermediates
-spill to HBM).  The integrators now split batches into
-``QGS_DF_BATCH_CHUNK``-sized chunks evaluated sequentially inside the time
-step (``qgs_tpu/integrators/rk.py:_chunk_df_apply``), so throughput must
-be MONOTONE in B, staying within ~10% of the per-chunk peak at 4x the
-knee (VERDICT r04 #5 "done" criterion).  This artifact measures both
-variants at B = 2048..16384.
+The integrators split per-device batches larger than a chunk threshold
+into sequential ``lax.map`` chunks inside the time step
+(``QGS_DF_BATCH_CHUNK`` for the double-float kernels, ``QGS_F32_BATCH_CHUNK``
+for the single-float ones; 0 disables chunking, see
+``qgs_jax/integrators/rk.py``).  This benchmark times the chunked step
+(with the threshold in force) against the unchunked one at B = 2048..16384
+(double-float) and B = 8192..65536 (float32), so the card says whether
+chunking wins anywhere.
 
-The single-float kernel hits the same knee 4x later (peak at B=16384,
-B=32768 regresses 26%) and is chunked the same way
-(``QGS_F32_BATCH_CHUNK``, ``_chunk_plain_step``); the f32 section sweeps
-B = 8192..65536 with the same monotonicity checks.
-
-Run (TPU): ``timeout 5400 python benchmarks/batch_knee.py``
+Run on the GPU: ``python benchmarks/batch_knee.py``
 Env: QGS_KNEE_OUT (JSON path), QGS_KNEE_STEPS (default 400),
 QGS_KNEE_CHUNKED_ONLY=1 to skip the unchunked comparison rows,
 QGS_KNEE_SKIP_F32=1 / QGS_KNEE_SKIP_DF=1 to run one section only.
@@ -86,18 +81,19 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(os.path.dirname(os.path.dirname(
-                              os.path.abspath(__file__))), ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from qgs_jax.utils.compile_cache import enable_compile_cache
 
-    from qgs_tpu.params.params import QgParams
-    from qgs_tpu.models.tendencies import create_tendencies
-    from qgs_tpu.ops.twofloat import df_from_f64, make_df_rk4_step_dynamic
-    from qgs_tpu.integrators.rk import _chunk_df_apply
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit(f"no GPU (platform {jax.devices()[0].platform!r})")
+    enable_compile_cache()
+    # the chunk sizes under test (the integrators default to no chunking)
+    os.environ.setdefault("QGS_DF_BATCH_CHUNK", "4096")
+    os.environ.setdefault("QGS_F32_BATCH_CHUNK", "16384")
+
+    from qgs_jax.params.params import QgParams
+    from qgs_jax.models.tendencies import create_tendencies
+    from qgs_jax.ops.twofloat import df_from_f64, make_df_rk4_step_dynamic
+    from qgs_jax.integrators.rk import _chunk_df_apply
 
     pars = QgParams()
     pars.set_atmospheric_channel_fourier_modes(2, 2)
@@ -115,7 +111,9 @@ def main():
     rng = np.random.default_rng(0)
     comparison = os.environ.get("QGS_KNEE_CHUNKED_ONLY") != "1"
     doc = {"metric": "batch_knee", "ndim": ndim,
-           "platform": jax.devices()[0].platform}
+           "platform": jax.devices()[0].platform,
+           "device_kind": jax.devices()[0].device_kind,
+           "device_count": jax.device_count()}
 
     if os.environ.get("QGS_KNEE_SKIP_DF") != "1":
         step = make_df_rk4_step_dynamic(tensor.tensor)
@@ -143,11 +141,11 @@ def main():
         doc.update({
             "points": points,
             "checks": _knee_checks(points, BATCHES, 16384),
-            "chunk": int(os.environ.get("QGS_DF_BATCH_CHUNK", "4096"))})
+            "chunk": int(os.environ["QGS_DF_BATCH_CHUNK"])})
 
     if os.environ.get("QGS_KNEE_SKIP_F32") != "1":
-        from qgs_tpu.ops.contraction import make_tendency_fns
-        from qgs_tpu.integrators.rk import (make_rk_step, rk4_tableau,
+        from qgs_jax.ops.contraction import make_tendency_fns
+        from qgs_jax.integrators.rk import (make_rk_step, rk4_tableau,
                                             _chunk_plain_step)
 
         f_b, _ = make_tendency_fns(tensor.tensor, tensor.jacobian_tensor,
@@ -174,8 +172,7 @@ def main():
         doc.update({
             "f32_points": points,
             "f32_checks": _knee_checks(points, BATCHES_F32, 65536),
-            "f32_chunk": int(os.environ.get("QGS_F32_BATCH_CHUNK",
-                                            "16384"))})
+            "f32_chunk": int(os.environ["QGS_F32_BATCH_CHUNK"])})
     out = os.environ.get("QGS_KNEE_OUT")
     if out:
         with open(out, "w") as fh:

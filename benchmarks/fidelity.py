@@ -5,7 +5,7 @@ beyond short-horizon allclose).
 Chaos precludes pointwise comparison over >= 1e5 RK4 steps, so fidelity is
 gated on *climate statistics*: an ensemble is integrated over the same
 window with (a) the device twofloat path and (b) the native f64 oracle
-(bit-exact reference semantics, ``qgs_tpu/native``), and the per-variable
+(bit-exact reference semantics, ``qgs_jax/native``), and the per-variable
 climate means/stds and the dominant spectral peak must agree to within the
 window's own sampling error.
 
@@ -34,8 +34,8 @@ import numpy as np
 
 
 def build_maooam():
-    from qgs_tpu.params.params import QgParams
-    from qgs_tpu.models.tendencies import create_tendencies
+    from qgs_jax.params.params import QgParams
+    from qgs_jax.models.tendencies import create_tendencies
 
     pars = QgParams()
     pars.set_atmospheric_channel_fourier_modes(2, 2)
@@ -54,7 +54,7 @@ def build_maooam():
 def attractor_ensemble(tensor, ndim, n_members, transient_steps=200_000,
                        spacing_steps=20_000, dt=0.1):
     """Decorrelated on-attractor ICs from one long native f64 trajectory."""
-    from qgs_tpu import native
+    from qgs_jax import native
 
     rng = np.random.default_rng(42)
     y = rng.random(ndim) * 0.01
@@ -68,7 +68,7 @@ def attractor_ensemble(tensor, ndim, n_members, transient_steps=200_000,
 
 def run_oracle(tensor, ics, n_steps, write_steps, dt=0.1):
     """Native f64 reference-semantics trajectories, (B, n_rec, ndim)."""
-    from qgs_tpu import native
+    from qgs_jax import native
 
     recs = []
     for ic in ics:
@@ -80,7 +80,7 @@ def run_oracle(tensor, ics, n_steps, write_steps, dt=0.1):
 
 def run_device_twofloat(tensor, ics, n_steps, write_steps, dt=0.1):
     """Device twofloat trajectories, (B, n_rec, ndim)."""
-    from qgs_tpu.integrators.rk import integrate_runge_kutta_df
+    from qgs_jax.integrators.rk import integrate_runge_kutta_df
 
     t, traj = integrate_runge_kutta_df(tensor.tensor, 0., n_steps * dt, dt,
                                        ics, write_steps=write_steps,
@@ -163,9 +163,9 @@ def qgs_rp_smoke_phase():
     """The reference's 1.1M-step qgs_rp configuration, end-to-end on device
     (ref ``qgs_rp.py:77-134``: 20-var RP atmosphere, transient 1e5 time
     units + 1e4 run at dt=0.1 written every 5 steps)."""
-    from qgs_tpu.params.params import QgParams
-    from qgs_tpu.models.tendencies import create_tendencies
-    from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
+    from qgs_jax.params.params import QgParams
+    from qgs_jax.models.tendencies import create_tendencies
+    from qgs_jax.integrators.integrator import RungeKuttaIntegrator
 
     print("qgs_rp smoke run (~1.1M RK4 steps on device)")
     pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.1})

@@ -13,10 +13,9 @@ BLV tiers (per resolution):
 * ``f32``      — everything in float32 (the raw-throughput tier; exponents
                  carry ~1e-5-level arithmetic noise).
 * ``twofloat`` — tangent propagation in double-float (2x float32) with the
-                 mixed-precision CholeskyQR window: ~f64 exponent accuracy
-                 at a fraction of emulated-f64 cost.
-* ``float64``  — XLA-emulated f64 oracle (small ensemble, MAOOAM scale
-                 only).
+                 platform's window QR (``qgs_jax.utils.backend``): ~f64
+                 exponent accuracy.
+* ``float64``  — native f64 oracle (small ensemble, MAOOAM scale only).
 
 CLV tiers (MAOOAM scale): Ginelli f32, Ginelli twofloat, subspace f32 —
 the full CLV menu of the reference (ref ``lyapunov.py:1175,1293``).
@@ -27,10 +26,9 @@ divergence between tiers stays bounded).
 
 Resolutions: MAOOAM 2,2/2,4 (ndim 36), 4,4/4,4 (ndim 104) and 6,6/6,6
 (ndim 228) — the latter two stress the count-bucketed direct tangent
-kernel (``make_bucketed_tangent``), where it measures 2.5-5.0x over the
-round-3 flat scatter matmul.
+kernel (``make_bucketed_tangent``).
 
-Run (TPU): ``timeout 5400 python benchmarks/lyapunov_throughput.py``
+Run on the GPU: ``python benchmarks/lyapunov_throughput.py``
 Env knobs: QGS_LYAP_ENSEMBLE (default 256), QGS_LYAP_WINDOWS (default 200),
 QGS_LYAP_TIERS (comma list, default "f32,twofloat,float64"),
 QGS_LYAP_CONFIGS (comma list of {2x2_2x4,4x4_4x4,6x6_6x6}),
@@ -66,8 +64,8 @@ def sizing(ndim, B_base, wind_base):
 
 
 def build(key):
-    from qgs_tpu.params.params import QgParams
-    from qgs_tpu.models.tendencies import create_tendencies
+    from qgs_jax.params.params import QgParams
+    from qgs_jax.models.tendencies import create_tendencies
 
     na, no = CONFIGS[key]
     pars = QgParams()
@@ -88,17 +86,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(os.path.dirname(os.path.dirname(
-                              os.path.abspath(__file__))), ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from qgs_jax.utils.compile_cache import enable_compile_cache
 
-    from qgs_tpu.integrators.rk import integrate_runge_kutta
-    from qgs_tpu.ops.contraction import make_tendency_fns
-    from qgs_tpu.toolbox.lyapunov import (compute_backward_lyapunovs,
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit(f"no GPU (platform {jax.devices()[0].platform!r})")
+    enable_compile_cache()
+
+    from qgs_jax.integrators.rk import integrate_runge_kutta
+    from qgs_jax.ops.contraction import make_tendency_fns
+    from qgs_jax.toolbox.lyapunov import (compute_backward_lyapunovs,
                                           compute_clvs_ginelli,
                                           compute_clvs_subspace)
 
@@ -110,7 +106,7 @@ def main():
     dt, mdt = 0.1, 0.1
 
     doc = {"metric": "lyapunov_toolbox_throughput", "dt": dt, "mdt": mdt,
-           "platform": None, "configs": {}}
+           "platform": None, "device_kind": None, "configs": {}}
 
     def flush():
         if out_path:
@@ -127,6 +123,7 @@ def main():
               f"(built in {time.time()-t_build:.0f}s)", flush=True)
 
         doc["platform"] = jax.devices()[0].platform
+        doc["device_kind"] = jax.devices()[0].device_kind
 
         rng = np.random.default_rng(0)
         ic64 = rng.random((B, ndim)) * 0.01
@@ -175,7 +172,7 @@ def main():
 
         for tier in tiers:
             if tier == "float64" and ndim > 40:
-                continue                         # emulated f64 at scale: hours
+                continue                    # the f64 oracle runs at MAOOAM scale
             B_t = min(B, 16) if tier == "float64" else B
             windows = min(n_windows, 50) if tier == "float64" else n_windows
             try:
@@ -228,11 +225,11 @@ def main():
                 cfg_doc["accuracy"] = {"error": str(err)[:300]}
             flush()
 
-        # CLV tiers at every resolution (round 5: the subspace tier's
-        # intersection is pure batched matmuls on-chip, so it scales with
-        # the Benettin passes; the recorded (B, n, n, T) vector blocks
-        # bound the batch as ndim grows — the same memory-in-trajectory-
-        # length constraint the reference documents)
+        # CLV tiers at every resolution (the subspace tier's intersection
+        # is batched matmuls on the device, so it scales with the Benettin
+        # passes; the recorded (B, n, n, T) vector blocks bound the batch
+        # as ndim grows — the same memory-in-trajectory-length constraint
+        # the reference documents)
         if os.environ.get("QGS_LYAP_CLV", "1") != "0":
             if ndim <= 40:
                 B_c, w_c = min(B, 64), min(n_windows, 100)

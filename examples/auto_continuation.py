@@ -12,9 +12,9 @@ _sys.path.insert(0, str(_pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.functions.symbolic_tendencies import create_symbolic_tendencies
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.functions.symbolic_tendencies import create_symbolic_tendencies
 
 # Continuation studies ask: how do the model's fixed points and periodic
 # orbits move as a parameter varies?  AUTO-07p answers that, but needs the

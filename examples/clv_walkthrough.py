@@ -15,10 +15,10 @@ matplotlib.use("Agg")
 import matplotlib.pyplot as plt
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
-from qgs_tpu.toolbox.lyapunov import (LyapunovsEstimator,
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator
+from qgs_jax.toolbox.lyapunov import (LyapunovsEstimator,
                                       CovariantLyapunovsEstimator)
 
 # The RP atmosphere (20 variables): small enough that every Lyapunov
@@ -103,7 +103,7 @@ plt.savefig("clv_local_exponent.png", dpi=90)
 # them on the grid next to the background flow.  The leading CLV localizes
 # on the active regions of the background jet -- the optimal error
 # pattern of the day.
-from qgs_tpu.diagnostics.util import create_grid_basis
+from qgs_jax.diagnostics.util import create_grid_basis
 
 nx, ny = 120, 60
 X, Y = np.meshgrid(np.linspace(0, 2 * np.pi / pars.scale_params.n, nx),
@@ -146,7 +146,7 @@ print(f"min CLV1-CLV2 angle along the window: {ang.min():.2f} deg "
 
 # The defining COVARIANCE property, checked numerically: pushing CLV_j(t)
 # through one step of the tangent flow lands it on span(CLV_j(t + dt)).
-from qgs_tpu.integrators.rk import make_tgls_step, rk4_tableau
+from qgs_jax.integrators.rk import make_tgls_step, rk4_tableau
 import jax.numpy as jnp
 
 a, b, c = rk4_tableau()

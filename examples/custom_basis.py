@@ -11,14 +11,14 @@ _sys.path.insert(0, str(_pathlib.Path(__file__).resolve().parents[1]))
 import numpy as np
 from sympy import symbols, sin, exp, pi, diff, integrate
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.basis.base import SymbolicBasis
-from qgs_tpu.inner_products.definition import StandardSymbolicInnerProductDefinition
-from qgs_tpu.inner_products.symbolic import (
+from qgs_jax.params.params import QgParams
+from qgs_jax.basis.base import SymbolicBasis
+from qgs_jax.inner_products.definition import StandardSymbolicInnerProductDefinition
+from qgs_jax.inner_products.symbolic import (
     AtmosphericSymbolicInnerProducts, GroundSymbolicInnerProducts,
 )
-from qgs_tpu.tensors.qgtensor import QgsTensor
-from qgs_tpu.ops.contraction import make_tendency_fns
+from qgs_jax.tensors.qgtensor import QgsTensor
+from qgs_jax.ops.contraction import make_tendency_fns
 
 x, y = symbols('x y')
 n = symbols('n', positive=True)

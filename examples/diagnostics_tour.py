@@ -13,31 +13,31 @@ matplotlib.use("Agg")
 import matplotlib.pyplot as plt
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
-from qgs_tpu.diagnostics.streamfunctions import (
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator
+from qgs_jax.diagnostics.streamfunctions import (
     LowerLayerAtmosphericStreamfunctionDiagnostic,
     UpperLayerAtmosphericStreamfunctionDiagnostic,
     MiddleAtmosphericStreamfunctionDiagnostic,
 )
-from qgs_tpu.diagnostics.temperatures import (
+from qgs_jax.diagnostics.temperatures import (
     MiddleAtmosphericTemperatureAnomalyDiagnostic,
     AtmosphericTemperatureMeridionalGradientDiagnostic,
 )
-from qgs_tpu.diagnostics.wind import (
+from qgs_jax.diagnostics.wind import (
     MiddleAtmosphericUWindDiagnostic, MiddleAtmosphericVWindDiagnostic,
     MiddleAtmosphericWindIntensityDiagnostic, MiddleLayerVerticalVelocity,
 )
-from qgs_tpu.diagnostics.vorticity import (
+from qgs_jax.diagnostics.vorticity import (
     MiddleAtmosphericVorticityDiagnostic,
     UpperLayerAtmosphericPotentialVorticityDiagnostic,
 )
-from qgs_tpu.diagnostics.eddy import (
+from qgs_jax.diagnostics.eddy import (
     MiddleAtmosphericEddyHeatFluxDiagnostic,
     MiddleAtmosphericEddyHeatFluxProfileDiagnostic,
 )
-from qgs_tpu.diagnostics.multi import MultiDiagnostic
+from qgs_jax.diagnostics.multi import MultiDiagnostic
 
 pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.1})
 pars.set_atmospheric_channel_fourier_modes(2, 2)

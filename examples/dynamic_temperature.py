@@ -14,9 +14,9 @@ matplotlib.use("Agg")
 import matplotlib.pyplot as plt
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.rk import integrate_runge_kutta
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.rk import integrate_runge_kutta
 
 # With dynamic_T=True the reference temperatures T_a0 / T_o0 stop being
 # fixed parameters and become prognostic 0-th order variables; the
@@ -65,7 +65,7 @@ plt.savefig("dynT_temperatures.png", dpi=100)
 # direct tangent contraction handles it without materializing J — one
 # tangent step along the trajectory as a smoke check.
 import jax.numpy as jnp
-from qgs_tpu.ops.contraction import make_direct_tangent
+from qgs_jax.ops.contraction import make_direct_tangent
 
 hom = make_direct_tangent(tensor.jacobian_tensor)
 x_end = traj[:, -1]

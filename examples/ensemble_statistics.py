@@ -9,10 +9,10 @@ _sys.path.insert(0, str(_pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
-from qgs_tpu.integrators.statistics import TrajectoriesStatistics
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator
+from qgs_jax.integrators.statistics import TrajectoriesStatistics
 
 pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.1})
 pars.set_atmospheric_channel_fourier_modes(2, 2)
@@ -21,8 +21,8 @@ pars.atemperature_params.set_thetas(0.2, 0)
 f, Df = create_tendencies(pars)
 
 # Ensembles are batched arrays sharded across the device mesh -- the
-# TPU-native replacement of the reference's one-OS-process-per-trajectory
-# pools.  Nothing here changes between 1 chip and a pod slice.
+# replacement of the reference's one-OS-process-per-trajectory pools.
+# Nothing here changes between one card and several.
 integrator = RungeKuttaIntegrator(number_of_dimensions=pars.ndim)
 integrator.set_func(f)
 
@@ -51,7 +51,7 @@ print(np.array2string(variance[0], precision=5))
 # worker processes, no pickling.
 import jax
 
-from qgs_tpu.parallel.mesh import ensemble_mesh
+from qgs_jax.parallel.mesh import ensemble_mesh
 
 mesh = ensemble_mesh()
 print("devices:", jax.device_count(), " mesh:", dict(mesh.shape))

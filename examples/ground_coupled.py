@@ -10,10 +10,10 @@ _sys.path.insert(0, str(_pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
-from qgs_tpu.diagnostics.temperatures import GroundTemperatureAnomalyDiagnostic
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator
+from qgs_jax.diagnostics.temperatures import GroundTemperatureAnomalyDiagnostic
 
 # Atmosphere over land (the MAOSOAM-like configuration of Li et al. 2018,
 # ref qgs/model/li_model.rst): the ground adds orography and a motionless

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Contraction-kernel selection: how the tendency contraction maps onto
-TPU hardware, and how to steer it."""
+the device, and how to steer it."""
 
 import sys as _sys
 import pathlib as _pathlib
@@ -11,9 +11,9 @@ _sys.path.insert(0, str(_pathlib.Path(__file__).resolve().parents[1]))
 import numpy as np
 import jax.numpy as jnp
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.ops.contraction import make_tendency_fns
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.ops.contraction import make_tendency_fns
 
 # Every qgs model reduces to ONE sparse tensor contraction per tendency
 # evaluation: dx_i/dt = sum_jk T[i,j,k] x_j x_k (rank 5 for the quartic
@@ -36,9 +36,8 @@ print(f"ndim {pars.ndim}, tensor nnz {T.nnz}")
 # The default ('auto' = 'bucketed') is the count-bucketed gather kernel:
 # output rows grouped by their EXACT nonzero count — no padding slots —
 # and entries grouped by how many state gathers they need (constants and
-# linear terms gather once, bilinear terms twice).  On a v5e this wins at
-# every resolution: 29.6M trajectory-steps/s here (ndim 36, B=4096) and
-# 6-8x the flat row-grouped layout at ndim 104-420 (RESOLUTION_r04.json).
+# linear terms gather once, bilinear terms twice).  Which kernel is
+# fastest on a GPU at each resolution is not measured yet.
 modes = {}
 for mode in ("bucketed", "rowsum", "coo", "dense"):
     modes[mode], _ = make_tendency_fns(T, JT, mode=mode)
@@ -49,12 +48,11 @@ for mode, fn in modes.items():
     err = np.abs(np.asarray(fn(0., jnp.asarray(x))) - ref).max()
     print(f"  mode {mode:>9}: max deviation from bucketed {err:.2e}")
 
-# Since round 4 the tensor buffers are jit ARGUMENTS, not baked
-# constants: each kernel is a Contraction whose device buffers live in
-# an `.operands` pytree, and compiled executables are cached by the
-# structural `.key`.  Two models with the same resolution share one
-# executable — changing a physics parameter costs a ~1 s dispatch, not a
-# fresh multi-minute compile.
+# The tensor buffers are jit ARGUMENTS, not baked constants: each kernel
+# is a Contraction whose device buffers live in an `.operands` pytree,
+# and compiled executables are cached by the structural `.key`.  Two
+# models with the same resolution share one executable — changing a
+# physics parameter costs a dispatch, not a fresh compile.
 fb = modes["bucketed"]
 print("structural key:", fb.key[0], "...")
 import jax
@@ -68,19 +66,15 @@ print("same-shape model shares the compiled apply:",
       f2b.apply is fb.apply)
 
 # The dense path matricizes the tensor into one (B, n1^2) x (n1^2, n1)
-# matmul — pure MXU work.  It loses to the bucketed gather kernel at
-# every measured scale on v5e, but it is the demonstrator of the
-# machine's FLOP ceiling: 50-58% of the exact-f32 MXU peak at
-# ndim 420-754 (RESOLUTION_r04.json), with the ~2 GB tensor shipped as
-# a device argument.
+# matmul at HIGHEST precision, with the tensor (~2 GB at ndim 754)
+# shipped as a device argument.
 fd = modes["dense"]
 T2T = fd.operands["T2T"]
 print(f"dense operand: {T2T.shape} ({T2T.size * 4 / 1e6:.1f} MB f64/f32)")
 
 # Rank-5 quartic tensors (dynamic_T / T4) additionally factor their four
 # per-entry gathers through a shared PAIR alphabet p = x_a * x_b — a few
-# hundred pairs serve thousands of entries, and the bucketed+paired
-# kernel runs the T4 tier at 4.2M trajectory-steps/s (19.9x the flat
-# layout).  See the maooam_T4 notebook for the quartic model itself.
+# hundred pairs serve thousands of entries.  See the maooam_T4 notebook
+# for the quartic model itself.
 print("kernel menu: auto | bucketed | pairsum | rowsum | rowsum_fm | "
       "coo | dense")

@@ -9,10 +9,10 @@ _sys.path.insert(0, str(_pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
-from qgs_tpu.toolbox.lyapunov import LyapunovsEstimator, CovariantLyapunovsEstimator
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator
+from qgs_jax.toolbox.lyapunov import LyapunovsEstimator, CovariantLyapunovsEstimator
 
 # The RP atmosphere again -- small enough (20 variables) that the full
 # Lyapunov spectrum and all covariant vectors are cheap.

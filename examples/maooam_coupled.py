@@ -14,17 +14,17 @@ matplotlib.use("Agg")
 import matplotlib.pyplot as plt
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
-from qgs_tpu.diagnostics.streamfunctions import (
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator
+from qgs_jax.diagnostics.streamfunctions import (
     MiddleAtmosphericStreamfunctionDiagnostic, OceanicLayerStreamfunctionDiagnostic,
 )
-from qgs_tpu.diagnostics.temperatures import (
+from qgs_jax.diagnostics.temperatures import (
     MiddleAtmosphericTemperatureAnomalyDiagnostic,
     OceanicLayerTemperatureAnomalyDiagnostic,
 )
-from qgs_tpu.diagnostics.multi import MultiDiagnostic
+from qgs_jax.diagnostics.multi import MultiDiagnostic
 
 # The MAOOAM coupled ocean-atmosphere model of De Cruz, Demaeyer &
 # Vannitsem (GMD 2016): a 2x2-block channel atmosphere over a 2x4-block

@@ -14,16 +14,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.ops.contraction import make_tendency_fns
-from qgs_tpu.ops.twofloat import make_df_rk4_step, df_from_f64, df_to_f64
-from qgs_tpu.integrators.rk import make_rk_step, rk4_tableau
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.ops.contraction import make_tendency_fns
+from qgs_jax.ops.twofloat import make_df_rk4_step, df_from_f64, df_to_f64
+from qgs_jax.integrators.rk import make_rk_step, rk4_tableau
 
-# TPU v5e has no native float64 (XLA emulates it ~60x slower) and its
-# default f32 matmul precision is one bf16 pass (~2e-3 relative!).  This
-# example measures the three tiers qgs-tpu offers on the MAOOAM model and
-# their error against the f64 oracle after 200 steps.
+# This example measures the three tiers qgs-jax offers on the MAOOAM
+# model and their error against the f64 oracle after 200 steps.  The
+# rates it prints are those of the device it runs on; on a CPU they say
+# nothing about a GPU.
 pars = QgParams()
 pars.set_atmospheric_channel_fourier_modes(2, 2)
 pars.set_oceanic_basin_fourier_modes(2, 4)
@@ -36,7 +36,7 @@ a, b, c = rk4_tableau()
 
 results = {}
 
-# float64 (exact; emulated ~60x slower on TPU v5e)
+# float64 (the reference precision)
 step64 = make_rk_step(f.batched, a, b, c)
 run64 = jax.jit(lambda y: jax.lax.fori_loop(
     0, N, lambda i, y: step64(y, jnp.asarray(0.0, y.dtype), jnp.asarray(0.1, y.dtype)), y))
@@ -56,9 +56,8 @@ results['float32'] = (N * B / (time.perf_counter() - t0), err32)
 
 # Double-float ("twofloat"): each value is an (hi, lo) pair of float32
 # whose sum represents a ~48-bit-mantissa number; sums/products use
-# error-free transformations (Knuth two-sum, Dekker product).  On TPU this
-# recovers f64-quality trajectories at a ~3x cost over float32 instead of
-# the ~60x of emulated f64.
+# error-free transformations (Knuth two-sum, Dekker product): f64-quality
+# trajectories from float32 arithmetic.
 stepdf = make_df_rk4_step(tensor.tensor, 0.1)
 rundf = jax.jit(lambda y: jax.lax.fori_loop(0, N, lambda i, y: stepdf(y), y))
 ydf = rundf(df_from_f64(jnp.asarray(x))); ydf[0].block_until_ready()
@@ -73,11 +72,10 @@ for k, (rate, err) in results.items():
 
 # The same tiers exist for the OTHER hot path: tangent-linear propagation
 # and the Lyapunov toolbox.  precision='twofloat' runs the Benettin
-# machinery with double-float tangent propagation and a mixed-precision
-# CholeskyQR (no emulated f64 anywhere on TPU): exponents track the f64
-# oracle to ~3e-13 on chip, where plain f32 drifts at ~1e-5 — at a
-# fraction of emulated-f64 cost.
-from qgs_tpu.toolbox.lyapunov import LyapunovsEstimator
+# machinery with double-float tangent propagation and the platform's
+# window QR (see qgs_jax.utils.backend): exponents track the f64 oracle,
+# where plain f32 drifts at ~1e-5.
+from qgs_jax.toolbox.lyapunov import LyapunovsEstimator
 
 ic = np.asarray(df_to_f64(ydf))[:1]
 

@@ -14,11 +14,11 @@ matplotlib.use("Agg")
 import matplotlib.pyplot as plt
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
-from qgs_tpu.diagnostics.variables import VariablesDiagnostic
-from qgs_tpu.diagnostics.streamfunctions import MiddleAtmosphericStreamfunctionDiagnostic
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator
+from qgs_jax.diagnostics.variables import VariablesDiagnostic
+from qgs_jax.diagnostics.streamfunctions import MiddleAtmosphericStreamfunctionDiagnostic
 
 # Configure the Reinhold & Pierrehumbert (1982) setup: a two-layer
 # quasi-geostrophic channel atmosphere at 50N, truncated at wavenumber 2 in

@@ -10,8 +10,8 @@ _sys.path.insert(0, str(_pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.functions.symbolic_tendencies import create_symbolic_tendencies
+from qgs_jax.params.params import QgParams
+from qgs_jax.functions.symbolic_tendencies import create_symbolic_tendencies
 
 # Build the model on the SYMBOLIC path: inner products kept as exact SymPy
 # expressions (return_symbolic under the hood) so parameters can stay

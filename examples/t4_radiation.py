@@ -15,9 +15,9 @@ matplotlib.use("Agg")
 import matplotlib.pyplot as plt
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.rk import (integrate_runge_kutta,
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.rk import (integrate_runge_kutta,
                                     integrate_runge_kutta_df)
 
 # T4=True activates the full quartic Stefan-Boltzmann T^4 law without
@@ -38,7 +38,7 @@ print("T4 tensor rank:", tensor.tensor.rank, " nnz:", tensor.tensor.nnz)
 # as two gathers of precomputed pair products p = x_a * x_b drawn from a
 # shared pair alphabet — for this tensor a few hundred pairs serve
 # thousands of rank-5 entries, halving the dominant gather traffic.
-from qgs_tpu.ops.contraction import make_pairsum_contraction
+from qgs_jax.ops.contraction import make_pairsum_contraction
 
 pair_kernel = make_pairsum_contraction(tensor.tensor)
 print("rank-5 entries:", tensor.tensor.nnz,

@@ -4,7 +4,7 @@ MAOOAM coupled ocean-atmosphere model run
 =========================================
 
 End-to-end driver for the 36-variable coupled ocean-atmosphere model
-(De Cruz, Demaeyer & Vannitsem 2016) — the qgs-tpu equivalent of the
+(De Cruz, Demaeyer & Vannitsem 2016) — the qgs-jax equivalent of the
 reference's ``qgs_maooam.py`` entry script.
 
 The multi-million-step transient runs as one compiled scan on the
@@ -17,9 +17,9 @@ import time
 
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
-from qgs_tpu.models.tendencies import create_tendencies
+from qgs_jax.params.params import QgParams
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator
+from qgs_jax.models.tendencies import create_tendencies
 
 np.random.seed(210217)
 
@@ -34,7 +34,7 @@ if __name__ == "__main__":
 
     T = time.perf_counter()
 
-    print("Model qgs-tpu (atmosphere + ocean (MAOOAM) configuration)")
+    print("Model qgs-jax (atmosphere + ocean (MAOOAM) configuration)")
     print("=========================================================\n")
     print("Initialization ...")
 

@@ -5,7 +5,7 @@ Reinhold & Pierrehumbert (1982) model run
 
 End-to-end driver for the 2-layer channel QG atmosphere truncated at
 wavenumber 2 with simple orography (a mountain and a valley) — the
-qgs-tpu equivalent of the reference's ``qgs_rp.py`` entry script.
+qgs-jax equivalent of the reference's ``qgs_rp.py`` entry script.
 
 The transient spin-up and the attractor trajectory each run as a single
 compiled ``lax.scan`` on the accelerator (no chunked host loop needed).
@@ -16,9 +16,9 @@ import time
 
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
-from qgs_tpu.models.tendencies import create_tendencies
+from qgs_jax.params.params import QgParams
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator
+from qgs_jax.models.tendencies import create_tendencies
 
 np.random.seed(21217)
 
@@ -32,7 +32,7 @@ if __name__ == "__main__":
 
     T = time.perf_counter()
 
-    print("Model qgs-tpu (atmosphere + orography configuration)")
+    print("Model qgs-jax (atmosphere + orography configuration)")
     print("====================================================\n")
     print("Initialization ...")
 

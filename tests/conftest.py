@@ -1,12 +1,14 @@
 """Test configuration: force the CPU backend with 8 virtual devices so that
-multi-chip sharding paths (mesh/pjit/shard_map) are exercised without TPU
-hardware, and enable float64 before JAX initializes."""
+multi-device sharding paths (mesh/pjit/shard_map) are exercised without a
+GPU, and enable float64 before JAX initializes.  ``QGS_TEST_DEVICE=gpu``
+leaves the platform to JAX (``chip_smoke.py`` sets it to run the
+``gpu``-marked tests on the card)."""
 
 import os
 
 os.environ.setdefault("JAX_ENABLE_X64", "true")
 
-if os.environ.get("QGS_TPU_TEST_DEVICE", "cpu") == "cpu":
+if os.environ.get("QGS_TEST_DEVICE", "cpu") == "cpu":
     os.environ["JAX_PLATFORMS"] = "cpu"
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:

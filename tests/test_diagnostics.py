@@ -8,9 +8,9 @@ matplotlib.use("Agg")
 import numpy as np
 import pytest
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +44,7 @@ def maooam_traj():
 
 def test_streamfunction_reconstruction_exact(rp_traj):
     """psi at a point must equal the explicit mode sum."""
-    from qgs_tpu.diagnostics.streamfunctions import (
+    from qgs_jax.diagnostics.streamfunctions import (
         MiddleAtmosphericStreamfunctionDiagnostic,
     )
     pars, t, traj = rp_traj
@@ -60,7 +60,7 @@ def test_streamfunction_reconstruction_exact(rp_traj):
 
 
 def test_layer_combinations(rp_traj):
-    from qgs_tpu.diagnostics.streamfunctions import (
+    from qgs_jax.diagnostics.streamfunctions import (
         LowerLayerAtmosphericStreamfunctionDiagnostic,
         UpperLayerAtmosphericStreamfunctionDiagnostic,
         MiddleAtmosphericStreamfunctionDiagnostic,
@@ -73,8 +73,8 @@ def test_layer_combinations(rp_traj):
 
 
 def test_wind_is_derivative_of_streamfunction(rp_traj):
-    from qgs_tpu.diagnostics.wind import MiddleAtmosphericUWindDiagnostic
-    from qgs_tpu.diagnostics.streamfunctions import (
+    from qgs_jax.diagnostics.wind import MiddleAtmosphericUWindDiagnostic
+    from qgs_jax.diagnostics.streamfunctions import (
         MiddleAtmosphericStreamfunctionDiagnostic,
     )
     pars, t, traj = rp_traj
@@ -88,34 +88,34 @@ def test_wind_is_derivative_of_streamfunction(rp_traj):
 
 
 def test_full_catalog_smoke_rp(rp_traj):
-    from qgs_tpu.diagnostics.streamfunctions import (
+    from qgs_jax.diagnostics.streamfunctions import (
         LowerLayerAtmosphericStreamfunctionDiagnostic,
         UpperLayerAtmosphericStreamfunctionDiagnostic,
         MiddleAtmosphericStreamfunctionDiagnostic,
     )
-    from qgs_tpu.diagnostics.temperatures import (
+    from qgs_jax.diagnostics.temperatures import (
         MiddleAtmosphericTemperatureAnomalyDiagnostic,
         MiddleAtmosphericTemperatureDiagnostic,
         AtmosphericTemperatureMeridionalGradientDiagnostic,
     )
-    from qgs_tpu.diagnostics.wind import (
+    from qgs_jax.diagnostics.wind import (
         LowerLayerAtmosphericUWindDiagnostic, LowerLayerAtmosphericVWindDiagnostic,
         MiddleAtmosphericUWindDiagnostic, MiddleAtmosphericVWindDiagnostic,
         UpperLayerAtmosphericUWindDiagnostic, UpperLayerAtmosphericVWindDiagnostic,
         MiddleAtmosphericWindIntensityDiagnostic, MiddleLayerVerticalVelocity,
     )
-    from qgs_tpu.diagnostics.vorticity import (
+    from qgs_jax.diagnostics.vorticity import (
         LowerLayerAtmosphericVorticityDiagnostic,
         MiddleAtmosphericVorticityDiagnostic,
         UpperLayerAtmosphericVorticityDiagnostic,
         UpperLayerAtmosphericPotentialVorticityDiagnostic,
         LowerLayerAtmosphericPotentialVorticityDiagnostic,
     )
-    from qgs_tpu.diagnostics.eddy import (
+    from qgs_jax.diagnostics.eddy import (
         MiddleAtmosphericEddyHeatFluxDiagnostic,
         MiddleAtmosphericEddyHeatFluxProfileDiagnostic,
     )
-    from qgs_tpu.diagnostics.variables import (
+    from qgs_jax.diagnostics.variables import (
         VariablesDiagnostic, GeopotentialHeightDifferenceDiagnostic,
     )
 
@@ -156,15 +156,15 @@ def test_full_catalog_smoke_rp(rp_traj):
 
 
 def test_ocean_diagnostics_and_multi(maooam_traj):
-    from qgs_tpu.diagnostics.streamfunctions import (
+    from qgs_jax.diagnostics.streamfunctions import (
         OceanicLayerStreamfunctionDiagnostic,
         MiddleAtmosphericStreamfunctionDiagnostic,
     )
-    from qgs_tpu.diagnostics.temperatures import (
+    from qgs_jax.diagnostics.temperatures import (
         OceanicLayerTemperatureAnomalyDiagnostic, OceanicLayerTemperatureDiagnostic,
     )
-    from qgs_tpu.diagnostics.vorticity import OceanicLayerVorticityDiagnostic
-    from qgs_tpu.diagnostics.multi import MultiDiagnostic
+    from qgs_jax.diagnostics.vorticity import OceanicLayerVorticityDiagnostic
+    from qgs_jax.diagnostics.multi import MultiDiagnostic
 
     pars, t, traj = maooam_traj
     for cls in (OceanicLayerStreamfunctionDiagnostic,
@@ -185,7 +185,7 @@ def test_ocean_diagnostics_and_multi(maooam_traj):
 
 
 def test_ground_temperature_diag():
-    from qgs_tpu.diagnostics.temperatures import (
+    from qgs_jax.diagnostics.temperatures import (
         GroundTemperatureAnomalyDiagnostic, GroundTemperatureDiagnostic,
     )
     pars = QgParams(gtemperature_params=True)
@@ -213,14 +213,14 @@ def test_parity_api_surface(rp_traj):
     point coordinates, MultiDiagnostic/FieldsDiagnosticsList catalog, movie
     hooks and ParametersArray properties (ref ``qgs/diagnostics/base.py``,
     ``multi.py``, ``qgs/params/parameter.py:1075-1150``)."""
-    from qgs_tpu.diagnostics.streamfunctions import (
+    from qgs_jax.diagnostics.streamfunctions import (
         MiddleAtmosphericStreamfunctionDiagnostic,
     )
-    from qgs_tpu.diagnostics.base import FieldPointDiagnostic
-    from qgs_tpu.diagnostics.eddy import MiddleAtmosphericEddyHeatFluxProfileDiagnostic
-    from qgs_tpu.diagnostics.multi import MultiDiagnostic, FieldsDiagnosticsList
-    from qgs_tpu.diagnostics.variables import VariablesDiagnostic
-    from qgs_tpu.params.parameter import ParametersArray
+    from qgs_jax.diagnostics.base import FieldPointDiagnostic
+    from qgs_jax.diagnostics.eddy import MiddleAtmosphericEddyHeatFluxProfileDiagnostic
+    from qgs_jax.diagnostics.multi import MultiDiagnostic, FieldsDiagnosticsList
+    from qgs_jax.diagnostics.variables import VariablesDiagnostic
+    from qgs_jax.params.parameter import ParametersArray
 
     pars, t, traj = rp_traj
     psi = MiddleAtmosphericStreamfunctionDiagnostic(pars)
@@ -281,7 +281,7 @@ def test_parity_api_surface(rp_traj):
     assert np.allclose(pa.nondimensional_values, np.asarray(pa, dtype=float))
 
     # symbolic tensor dict helpers
-    from qgs_tpu.tensors.symbolic_qgtensor import SymbolicQgsTensor
+    from qgs_jax.tensors.symbolic_qgtensor import SymbolicQgsTensor
     dic = {(1, 2, 1): 3.0, (1, 1, 2): 1.0, (2, 0, 0): 0.0}
     nz = SymbolicQgsTensor.remove_dic_zeros(dic)
     assert (2, 0, 0) not in nz and len(nz) == 2
@@ -296,7 +296,7 @@ def test_parity_api_surface(rp_traj):
 def test_meridional_gradient_alias(rp_traj):
     """The 500hPa meridional-gradient diagnostic equals the generic one
     (it is the same thermal-wind field, ref temperatures.py:635-705)."""
-    from qgs_tpu.diagnostics.temperatures import (
+    from qgs_jax.diagnostics.temperatures import (
         AtmosphericTemperatureMeridionalGradientDiagnostic,
         MiddleAtmosphericTemperatureMeridionalGradientDiagnostic,
     )

@@ -1,22 +1,22 @@
 """Multi-process (virtual multi-host) distributed-execution tests.
 
-The TPU-native replacement for the reference's single-node process pool
+The mesh replacement for the reference's single-node process pool
 (ref ``qgs/integrators/integrator.py:77-142``) must also cover the
 cross-host case.  These tests spawn real OS processes wired with
 ``jax.distributed`` + Gloo over CPU devices and check that the sharded
 multi-host MAOOAM integration matches the single-device oracle
-bit-for-bit (see ``qgs_tpu/parallel/distributed.py``).
+bit-for-bit (see ``qgs_jax/parallel/distributed.py``).
 """
 
 import numpy as np
 import pytest
 
-from qgs_tpu.parallel.distributed import host_chip_mesh, run_multiprocess_selftest
+from qgs_jax.parallel.distributed import host_chip_mesh, run_multiprocess_selftest
 
 
 def test_multiprocess_ensemble_and_model_axes():
     # 2 processes x 2 virtual devices each: ensemble axis spans processes
-    # (DCN analogue), model axis stays inside a process (ICI psum analogue).
+    # (cross-host analogue), model axis stays inside a process.
     reports = run_multiprocess_selftest(num_processes=2, local_devices=2,
                                         model_axis_size=2)
     assert len(reports) == 2
@@ -33,7 +33,7 @@ def test_host_chip_mesh_layout():
 
 
 def test_gather_to_host_single_process():
-    from qgs_tpu.parallel.distributed import gather_to_host, make_global_array
+    from qgs_jax.parallel.distributed import gather_to_host, make_global_array
     from jax.sharding import PartitionSpec as P
 
     mesh = host_chip_mesh(model_axis_size=1)

@@ -29,15 +29,15 @@ def test_docs_site_builds(tmp_path):
                      "model_description.html", "diagnostics_catalog.html"):
         assert required in pages
     # an API page for every core module a reference user would browse
-    for mod in ("qgs_tpu.integrators.integrator", "qgs_tpu.params.params",
-                "qgs_tpu.toolbox.lyapunov", "qgs_tpu.ops.contraction",
-                "qgs_tpu.diagnostics.streamfunctions"):
+    for mod in ("qgs_jax.integrators.integrator", "qgs_jax.params.params",
+                "qgs_jax.toolbox.lyapunov", "qgs_jax.ops.contraction",
+                "qgs_jax.diagnostics.streamfunctions"):
         assert f"api_{mod}.html" in pages, f"missing API page for {mod}"
     assert len([p for p in pages if p.startswith("api_")]) >= 40
 
     # signatures are browsable (the round-3 gap: no way to see
     # RungeKuttaTglsIntegrator's signature without reading source)
-    integ = (tmp_path / "api_qgs_tpu.integrators.integrator.html").read_text()
+    integ = (tmp_path / "api_qgs_jax.integrators.integrator.html").read_text()
     assert "RungeKuttaTglsIntegrator" in integ
     assert "set_func" in integ and "integrate" in integ
 

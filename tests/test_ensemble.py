@@ -4,10 +4,10 @@ mesh (conftest forces JAX_PLATFORMS=cpu with 8 host devices)."""
 import jax
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.integrator import RungeKuttaIntegrator, RungeKuttaTglsIntegrator
-from qgs_tpu.parallel.mesh import ensemble_mesh, shard_ensemble
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.integrator import RungeKuttaIntegrator, RungeKuttaTglsIntegrator
+from qgs_jax.parallel.mesh import ensemble_mesh, shard_ensemble
 
 
 def _system():
@@ -99,7 +99,7 @@ def test_twofloat_precision_tier():
     # step now splits arbitrary tableau coefficients exactly); implicit
     # tableaux are rejected, not silently wrong
     import pytest
-    from qgs_tpu.integrators.rk import rk2_tableau
+    from qgs_jax.integrators.rk import rk2_tableau
     a2, b2, c2 = rk2_tableau()
     rk2 = RungeKuttaIntegrator(a=a2, b=b2, c=c2, precision="twofloat")
     rk2.set_func(f)
@@ -125,9 +125,9 @@ def test_mode_sharded_tendency_matches_unsharded():
     roundoff."""
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    from qgs_tpu.ops.contraction import (jit_contraction,
+    from qgs_jax.ops.contraction import (jit_contraction,
                                          make_bucketed_contraction)
-    from qgs_tpu.parallel.sharded_tendency import make_sharded_tendency
+    from qgs_jax.parallel.sharded_tendency import make_sharded_tendency
 
     pars = QgParams()
     pars.set_atmospheric_channel_fourier_modes(2, 2)

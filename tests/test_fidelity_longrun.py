@@ -10,7 +10,7 @@ and the reference smoke-run context (ref ``README.md:68-91``).
 import numpy as np
 import pytest
 
-from qgs_tpu import native
+from qgs_jax import native
 
 from benchmarks.fidelity import (
     attractor_ensemble, build_maooam, check_metrics, compare_climate,

@@ -4,8 +4,8 @@ ground-truth fixtures (ref ``model_test/test_inner_products.py:23-79``)."""
 import numpy as np
 import pytest
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.inner_products.analytic import (
+from qgs_jax.params.params import QgParams
+from qgs_jax.inner_products.analytic import (
     AtmosphericAnalyticInnerProducts, OceanicAnalyticInnerProducts,
 )
 from tests.ref_utils import collect_entries, compare_to_ref

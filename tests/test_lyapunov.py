@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qgs_tpu.toolbox.lyapunov import (
+from qgs_jax.toolbox.lyapunov import (
     compute_backward_lyapunovs, compute_forward_lyapunovs,
     compute_clvs_ginelli, compute_clvs_subspace,
     LyapunovsEstimator, CovariantLyapunovsEstimator,
 )
-from qgs_tpu.integrators.rk import integrate_runge_kutta
+from qgs_jax.integrators.rk import integrate_runge_kutta
 
 SIGMA, RHO, BETA = 10., 28., 8. / 3.
 L63_SPECTRUM = np.array([0.906, 0.0, -14.572])
@@ -82,7 +82,7 @@ def test_clvs_ginelli(attractor_ic):
 def test_clvs_covariance_property(attractor_ic):
     """The defining property: the tangent flow maps CLV_j(t) onto
     span(CLV_j(t+dt)) — check alignment after one window."""
-    from qgs_tpu.integrators.rk import make_tgls_step, rk4_tableau
+    from qgs_jax.integrators.rk import make_tgls_step, rk4_tableau
     t, traj, exps, vecs = compute_clvs_ginelli(
         f63, Df63, 0., 20., 60., 90., 0.01, 0.01, attractor_ic[:1], write_steps=1)
     traj = np.asarray(traj)
@@ -164,7 +164,7 @@ def test_estimator_partial_tableau(attractor_ic):
         "partial-tableau b was not applied"
 
     # ensemble integrators share the same merge semantics
-    from qgs_tpu.integrators.integrator import (RungeKuttaIntegrator,
+    from qgs_jax.integrators.integrator import (RungeKuttaIntegrator,
                                                 RungeKuttaTglsIntegrator)
     for icls in (RungeKuttaIntegrator, RungeKuttaTglsIntegrator):
         integ = icls(b=b_euler)
@@ -181,8 +181,8 @@ def test_qg_model_lyapunov_spectrum():
     invariance of the autonomous flow), and (c) a sum equal to the
     time-mean phase-space divergence trace(Df) along the trajectory."""
     import jax.numpy as jnp
-    from qgs_tpu.params.params import QgParams
-    from qgs_tpu.models.tendencies import create_tendencies
+    from qgs_jax.params.params import QgParams
+    from qgs_jax.models.tendencies import create_tendencies
 
     pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.3})
     pars.set_atmospheric_channel_fourier_modes(2, 2)
@@ -212,7 +212,7 @@ def test_qg_model_lyapunov_spectrum():
 
 def test_lyapunov_f32_dtype_preserved(attractor_ic):
     """An f32 ensemble must stay f32 end-to-end (no silent promotion to
-    f64 — on TPU that would fall into the ~60x-slower emulated-f64 path)."""
+    f64, which would silently run the slower f64 arithmetic)."""
     import jax.numpy as jnp
 
     def f32(t, x):
@@ -280,8 +280,8 @@ def test_clvs_subspace_batch_boundary(attractor_ic):
 def test_qg_clv_cross_method():
     """Ginelli vs subspace-intersection CLVs on the QG model itself: the
     leading vectors must align and the mean exponents agree."""
-    from qgs_tpu.params.params import QgParams
-    from qgs_tpu.models.tendencies import create_tendencies
+    from qgs_jax.params.params import QgParams
+    from qgs_jax.models.tendencies import create_tendencies
 
     pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.3})
     pars.set_atmospheric_channel_fourier_modes(2, 2)
@@ -345,9 +345,9 @@ def test_twofloat_toolbox_precision():
     tighter than an all-f32 run (CPU backend strips the EFT barriers, so
     the on-chip agreement is tighter still)."""
     import jax.numpy as jnp
-    from qgs_tpu.params.params import QgParams
-    from qgs_tpu.models.tendencies import create_tendencies
-    from qgs_tpu.ops.contraction import make_tendency_fns
+    from qgs_jax.params.params import QgParams
+    from qgs_jax.models.tendencies import create_tendencies
+    from qgs_jax.ops.contraction import make_tendency_fns
 
     pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.3})
     pars.set_atmospheric_channel_fourier_modes(2, 2)
@@ -424,10 +424,10 @@ def test_twofloat_toolbox_precision():
 
 
 def test_batched_qr_cholqr2():
-    """CholeskyQR2 (the TPU-native re-orthonormalization of the Benettin
+    """CholeskyQR2 (the matmul-based re-orthonormalization of the Benettin
     windows) must match Householder QR: orthonormal Q, consistent |diag R|
     (the exponent source), exact reconstruction."""
-    from qgs_tpu.toolbox.lyapunov import batched_qr
+    from qgs_jax.toolbox.lyapunov import batched_qr
 
     rng = np.random.default_rng(0)
     m = jnp.asarray(rng.standard_normal((8, 20, 12)))
@@ -447,7 +447,7 @@ def test_batched_qr_cholqr2():
     assert np.abs(dc / dh - 1).max() < 1e-10
 
     # end-to-end: the L63 spectrum through explicitly-cholqr2 windows
-    from qgs_tpu.toolbox.lyapunov import make_window_step
+    from qgs_jax.toolbox.lyapunov import make_window_step
     import jax
 
     win_c = make_window_step(f63, Df63, 0.01, 0.01, qr_method="cholqr2")
@@ -512,8 +512,8 @@ def test_estimator_honors_custom_fjac():
     honored (the tensors are only used when fjac is the tensor-derived
     Jacobian of the same model)."""
     import jax.numpy as jnp
-    from qgs_tpu.params.params import QgParams
-    from qgs_tpu.models.tendencies import create_tendencies
+    from qgs_jax.params.params import QgParams
+    from qgs_jax.models.tendencies import create_tendencies
 
     pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.3})
     pars.set_atmospheric_channel_fourier_modes(2, 2)

@@ -5,17 +5,17 @@ ground/orography configuration cross-check (ref
 import numpy as np
 import pytest
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.model import (
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.model import (
     QgsModel, save_trajectory_checkpoint, load_trajectory_checkpoint,
 )
-from qgs_tpu.inner_products.analytic import (
+from qgs_jax.inner_products.analytic import (
     AtmosphericAnalyticInnerProducts, GroundAnalyticInnerProducts,
 )
-from qgs_tpu.inner_products.symbolic import (
+from qgs_jax.inner_products.symbolic import (
     AtmosphericSymbolicInnerProducts, GroundSymbolicInnerProducts,
 )
-from qgs_tpu.tensors.qgtensor import QgsTensor
+from qgs_jax.tensors.qgtensor import QgsTensor
 
 
 def _ground_params(mode):
@@ -71,7 +71,7 @@ def test_qgs_model_save_load(tmp_path):
 
 
 def test_throughput_meter():
-    from qgs_tpu.utils.profiling import ThroughputMeter
+    from qgs_jax.utils.profiling import ThroughputMeter
     import time
 
     m = ThroughputMeter(ndim=36, ensemble=100)

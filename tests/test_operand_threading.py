@@ -4,20 +4,20 @@ jit *arguments* (not baked program constants), so that
 * two same-shape models (different parameter values) share one compiled
   executable — no recompile per configuration (the round-3 sweep paid a
   ~3-minute remote compile per parameter set), and
-* the dense MXU path's program size stays independent of the tensor size
+* the dense matmul path's program size stays independent of the tensor size
   (the round-3 dense path died at ndim 421 on a compile-request limit).
 
-See ``qgs_tpu/ops/contraction.py`` (Contraction) and the scan caches in
-``qgs_tpu/integrators/rk.py``.
+See ``qgs_jax/ops/contraction.py`` (Contraction) and the scan caches in
+``qgs_jax/integrators/rk.py``.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qgs_tpu.integrators import rk
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.params.params import QgParams
+from qgs_jax.integrators import rk
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.params.params import QgParams
 
 
 def _maooam_params(kd):
@@ -91,7 +91,7 @@ def test_dense_mode_threads_tensor_as_argument(two_models):
     """The dense path must place the matricized tensor in the operands
     pytree (a device argument), not close over it — and agree with the
     rowsum path."""
-    from qgs_tpu.ops.contraction import make_tendency_fns
+    from qgs_jax.ops.contraction import make_tendency_fns
 
     (_, _, ta), _ = two_models
     f_dense, jac_dense = make_tendency_fns(ta.tensor, ta.jacobian_tensor,
@@ -130,7 +130,7 @@ def test_df_scan_shares_executable_across_models(two_models):
 def test_direct_tangent_variants_share_key(two_models):
     """adjoint/inverse live purely in operand values: every variant of the
     same shape shares one compiled program."""
-    from qgs_tpu.ops.contraction import make_direct_tangent
+    from qgs_jax.ops.contraction import make_direct_tangent
 
     (_, _, ta), _ = two_models
     plain = make_direct_tangent(ta.jacobian_tensor)
@@ -156,7 +156,7 @@ def test_tgls_twofloat_rejects_custom_fjac(two_models):
     """ADVICE r03: a custom fjac with precision='twofloat' must raise (the
     fused step contracts the model's own jacobian tensor and would silently
     ignore the custom one)."""
-    from qgs_tpu.integrators.integrator import RungeKuttaTglsIntegrator
+    from qgs_jax.integrators.integrator import RungeKuttaTglsIntegrator
 
     (fa, Dfa, _), _ = two_models
 
@@ -181,7 +181,7 @@ def test_rowsum_feature_major_matches(two_models):
     """Feature-major gathers (rows of the transposed state) must be
     arithmetically identical to the batch-major layout."""
     import jax.numpy as jnp
-    from qgs_tpu.ops.contraction import make_rowsum_contraction
+    from qgs_jax.ops.contraction import make_rowsum_contraction
 
     (_, _, ta), _ = two_models
     T = ta.tensor
@@ -198,7 +198,7 @@ def test_bucketed_contraction_matches_rowsum(two_models):
     """The count-bucketed (padding-free) kernel must reproduce the rowsum
     contraction on the MAOOAM tensor."""
     import jax.numpy as jnp
-    from qgs_tpu.ops.contraction import (make_bucketed_contraction,
+    from qgs_jax.ops.contraction import (make_bucketed_contraction,
                                          make_rowsum_contraction)
 
     (_, _, ta), _ = two_models
@@ -223,7 +223,7 @@ def test_bucket_ladder_quantization_bit_identical(two_models):
     padding stays bounded; the ladder must also never exceed its budget."""
     import jax
     import jax.numpy as jnp
-    from qgs_tpu.ops.contraction import (_active_index_groups,
+    from qgs_jax.ops.contraction import (_active_index_groups,
                                          _count_thresholds, _bucketed_layout,
                                          make_bucketed_contraction,
                                          jit_contraction)
@@ -265,7 +265,7 @@ def test_tgls_twofloat_accepts_rebuilt_jacobian(two_models):
     """A Jacobian rebuilt from the SAME parameters (value-equal tensors,
     different objects) must be accepted by the twofloat guard — only a
     numerically different fjac is 'custom'."""
-    from qgs_tpu.integrators.integrator import RungeKuttaTglsIntegrator
+    from qgs_jax.integrators.integrator import RungeKuttaTglsIntegrator
 
     (fa, _, _), _ = two_models
     fa2, Dfa2, _ = create_tendencies(_maooam_params(0.0290),
@@ -280,7 +280,7 @@ def test_tgls_twofloat_accepts_rebuilt_jacobian(two_models):
 
 
 def test_unknown_mode_raises(two_models):
-    from qgs_tpu.ops.contraction import make_tendency_fns
+    from qgs_jax.ops.contraction import make_tendency_fns
 
     (_, _, ta), _ = two_models
     with pytest.raises(ValueError, match="unknown contraction mode"):

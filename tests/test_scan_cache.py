@@ -1,4 +1,4 @@
-"""Regression tests for the compiled-scan cache in qgs_tpu.integrators.rk.
+"""Regression tests for the compiled-scan cache in qgs_jax.integrators.rk.
 
 Round-1 review finding: keying the cache on ``id(f)`` let a garbage-
 collected tendency function's address be reused by a new function, which
@@ -11,7 +11,7 @@ import gc
 import jax.numpy as jnp
 import numpy as np
 
-from qgs_tpu.integrators import rk
+from qgs_jax.integrators import rk
 
 
 def _make_linear_tendency(rate):

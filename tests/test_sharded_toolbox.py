@@ -4,18 +4,18 @@
 (no cross-member reductions exist in these programs).
 
 Round-1 review: the TGLS ensemble integrator and the whole L5 toolbox ran
-single-device; these tests pin the sharded paths (the TPU-native analogue
+single-device; these tests pin the sharded paths (the mesh analogue
 of ref ``qgs/toolbox/lyapunov.py:155,816`` pool-parallel estimators).
 """
 
 import jax
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.integrator import RungeKuttaTglsIntegrator
-from qgs_tpu.parallel.mesh import ensemble_mesh
-from qgs_tpu.toolbox.lyapunov import (
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.integrator import RungeKuttaTglsIntegrator
+from qgs_jax.parallel.mesh import ensemble_mesh
+from qgs_jax.toolbox.lyapunov import (
     compute_backward_lyapunovs, compute_clvs_ginelli,
     LyapunovsEstimator, CovariantLyapunovsEstimator,
 )

@@ -7,9 +7,9 @@ import math
 import numpy as np
 import pytest
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.functions.symbolic_tendencies import create_symbolic_tendencies
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.functions.symbolic_tendencies import create_symbolic_tendencies
 
 
 @pytest.fixture(scope="module")

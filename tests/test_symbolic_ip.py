@@ -5,15 +5,15 @@ and ``test_inner_products.py::TestSymbolicInnerProducts``)."""
 import numpy as np
 import pytest
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.inner_products.analytic import (
+from qgs_jax.params.params import QgParams
+from qgs_jax.inner_products.analytic import (
     AtmosphericAnalyticInnerProducts, OceanicAnalyticInnerProducts,
 )
-from qgs_tpu.inner_products.definition import StandardSymbolicInnerProductDefinition
-from qgs_tpu.inner_products.symbolic import (
+from qgs_jax.inner_products.definition import StandardSymbolicInnerProductDefinition
+from qgs_jax.inner_products.symbolic import (
     AtmosphericSymbolicInnerProducts, OceanicSymbolicInnerProducts,
 )
-from qgs_tpu.tensors.qgtensor import QgsTensor, QgsTensorDynamicT
+from qgs_jax.tensors.qgtensor import QgsTensor, QgsTensorDynamicT
 
 
 def _sym_params(dynamic_T=False, T4=False):
@@ -76,7 +76,7 @@ def test_dynamic_T_tensor_builds():
     assert t.tensor.rank == 5
     assert t.tensor.nnz > 0
 
-    from qgs_tpu.ops.contraction import make_tendency_fns
+    from qgs_jax.ops.contraction import make_tendency_fns
     f_b, jac_b = make_tendency_fns(t.tensor, t.jacobian_tensor)
     x = np.random.default_rng(0).random((3, pars.ndim)) * 0.01
     fx = np.asarray(f_b(0., x))
@@ -168,8 +168,8 @@ def test_exact_ip_process_pool_equivalence():
     ``qgs/inner_products/symbolic.py:26,1636-1697``) must give bitwise the
     same coefficients as the serial path."""
     import numpy as np
-    from qgs_tpu.params.params import QgParams
-    from qgs_tpu.inner_products.symbolic import AtmosphericSymbolicInnerProducts
+    from qgs_jax.params.params import QgParams
+    from qgs_jax.inner_products.symbolic import AtmosphericSymbolicInnerProducts
 
     def build(num_threads):
         pars = QgParams({'phi0_npi': np.deg2rad(50.) / np.pi, 'hd': 0.1})

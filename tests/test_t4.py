@@ -6,13 +6,13 @@ the 0-index pattern)."""
 import numpy as np
 import pytest
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.inner_products.symbolic import (
+from qgs_jax.params.params import QgParams
+from qgs_jax.inner_products.symbolic import (
     AtmosphericSymbolicInnerProducts, OceanicSymbolicInnerProducts,
 )
-from qgs_tpu.tensors.qgtensor import QgsTensorT4
-from qgs_tpu.ops.contraction import make_tendency_fns
-from qgs_tpu.models.numpy_backend import make_numpy_tendencies
+from qgs_jax.tensors.qgtensor import QgsTensorT4
+from qgs_jax.ops.contraction import make_tendency_fns
+from qgs_jax.models.numpy_backend import make_numpy_tendencies
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +83,7 @@ def test_t4_tendencies_consistency(t4_system):
 
 
 def test_t4_integration_smoke(t4_system):
-    from qgs_tpu.integrators.rk import integrate_runge_kutta
+    from qgs_jax.integrators.rk import integrate_runge_kutta
     pars, aip, oip, tensor = t4_system
     f_b, _ = make_tendency_fns(tensor.tensor, tensor.jacobian_tensor)
     rng = np.random.default_rng(2)
@@ -103,7 +103,7 @@ def test_dynamic_t_analytic_ips_rejected():
     coefficients (the reference's accessors are silent no-ops,
     ref ``qgs/inner_products/analytic.py:432-436``, and it crashes deep in
     tensor assembly instead)."""
-    from qgs_tpu.models.tendencies import create_tendencies
+    from qgs_jax.models.tendencies import create_tendencies
 
     pars = QgParams(dynamic_T=True)
     pars.set_atmospheric_channel_fourier_modes(2, 2)   # analytic blocks
@@ -118,7 +118,7 @@ def test_t4_direct_tangent(t4_system):
     (multiple trailing state gathers) — the path the Lyapunov toolbox uses
     for dynamic-T/T4 models."""
     import jax.numpy as jnp
-    from qgs_tpu.ops.contraction import make_direct_tangent
+    from qgs_jax.ops.contraction import make_direct_tangent
 
     pars, aip, oip, tensor = t4_system
     _, jac_b = make_tendency_fns(tensor.tensor, tensor.jacobian_tensor)
@@ -144,7 +144,7 @@ def test_t4_twofloat_trajectory(t4_system):
     rank-5 kernels at full f64 (ref ``qgs/functions/sparse_mul.py:85-158``);
     this is the matching-precision fast tier."""
     import jax.numpy as jnp
-    from qgs_tpu.integrators.rk import (integrate_runge_kutta,
+    from qgs_jax.integrators.rk import (integrate_runge_kutta,
                                         integrate_runge_kutta_df)
 
     pars, aip, oip, tensor = t4_system
@@ -160,7 +160,7 @@ def test_t4_twofloat_trajectory(t4_system):
                                       write_steps=0, squeeze=False)
     err = np.abs(np.asarray(ydf) - np.asarray(y64)).max()
     # CPU backend strips the EFT barriers (see ops/twofloat.py) — ~1e-10
-    # here; on TPU the same kernel is ~1e-13
+    # here
     assert err < 1e-9, err
 
     # f32 for contrast: orders of magnitude worse
@@ -174,7 +174,7 @@ def test_t4_twofloat_trajectory(t4_system):
 
 def test_t4_twofloat_tgls(t4_system):
     """Rank-5 coupled (trajectory, tangent) double-float propagation."""
-    from qgs_tpu.integrators.rk import (integrate_runge_kutta_tgls,
+    from qgs_jax.integrators.rk import (integrate_runge_kutta_tgls,
                                         integrate_runge_kutta_tgls_df)
 
     pars, aip, oip, tensor = t4_system
@@ -199,7 +199,7 @@ def test_t4_pairsum_matches_rowsum(t4_system):
     """The pair-factored quartic kernel (auto-selected for rank-5) must
     reproduce the plain row-sum contraction, in both gather layouts."""
     import jax.numpy as jnp
-    from qgs_tpu.ops.contraction import (make_pairsum_contraction,
+    from qgs_jax.ops.contraction import (make_pairsum_contraction,
                                          make_rowsum_contraction)
 
     pars, aip, oip, tensor = t4_system
@@ -225,7 +225,7 @@ def test_t4_df_pair_factoring(t4_system):
     with a pair alphabet far smaller than the slot count."""
     import jax
     import jax.numpy as jnp
-    from qgs_tpu.ops.twofloat import (df_from_f64, df_to_f64,
+    from qgs_jax.ops.twofloat import (df_from_f64, df_to_f64,
                                       make_df_quadratic)
 
     pars, aip, oip, tensor = t4_system
@@ -247,7 +247,7 @@ def test_t4_bucketed_auto_mode(t4_system):
     """auto mode now selects the count-bucketed pair-factored kernel for
     rank-5 tensors; it must agree with the explicit rowsum path."""
     import jax.numpy as jnp
-    from qgs_tpu.ops.contraction import make_tendency_fns
+    from qgs_jax.ops.contraction import make_tendency_fns
 
     pars, aip, oip, tensor = t4_system
     f_auto, _ = make_tendency_fns(tensor.tensor, tensor.jacobian_tensor,
@@ -263,7 +263,7 @@ def test_t4_bucketed_auto_mode(t4_system):
 
 
 def test_t4_dense_mode_rejected(t4_system):
-    from qgs_tpu.ops.contraction import make_tendency_fns
+    from qgs_jax.ops.contraction import make_tendency_fns
 
     pars, aip, oip, tensor = t4_system
     with pytest.raises(ValueError, match="rank-3"):

@@ -3,11 +3,11 @@ against the MAOOAM fixtures (ref ``model_test/test_aotensor*.py``)."""
 
 import numpy as np
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.inner_products.analytic import (
+from qgs_jax.params.params import QgParams
+from qgs_jax.inner_products.analytic import (
     AtmosphericAnalyticInnerProducts, OceanicAnalyticInnerProducts,
 )
-from qgs_tpu.tensors.qgtensor import QgsTensor
+from qgs_jax.tensors.qgtensor import QgsTensor
 from tests.ref_utils import compare_to_ref
 
 

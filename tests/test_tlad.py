@@ -7,9 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.integrators.rk import integrate_runge_kutta, integrate_runge_kutta_tgls
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.integrators.rk import integrate_runge_kutta, integrate_runge_kutta_tgls
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +102,7 @@ def test_discrete_adjoint_exact(system):
     100 random pairs — this is the machine-precision adjoint gate the
     continuous-adjoint convention cannot provide."""
     import jax.numpy as jnp
-    from qgs_tpu.integrators.rk import make_tgls_step, rk4_tableau
+    from qgs_jax.integrators.rk import make_tgls_step, rk4_tableau
 
     pars, f, Df, y0 = system
     a, b, c = rk4_tableau()

@@ -6,12 +6,12 @@ RP atmosphere-only and the coupled MAOOAM configurations
 import numpy as np
 import pytest
 
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
-from qgs_tpu.models.numpy_backend import (
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
+from qgs_jax.models.numpy_backend import (
     make_numpy_tendencies, integrate_runge_kutta_numpy,
 )
-from qgs_tpu.integrators.rk import integrate_runge_kutta
+from qgs_jax.integrators.rk import integrate_runge_kutta
 
 
 def _rp_params():
@@ -86,11 +86,11 @@ def test_write_steps_semantics():
 def test_high_resolution_coo_mode():
     """6x6 config (ndim=228): auto mode picks the gather-scatter COO path;
     it must agree with the dense einsum path."""
-    from qgs_tpu.inner_products.analytic import (
+    from qgs_jax.inner_products.analytic import (
         AtmosphericAnalyticInnerProducts, OceanicAnalyticInnerProducts,
     )
-    from qgs_tpu.tensors.qgtensor import QgsTensor
-    from qgs_tpu.ops.contraction import make_tendency_fns
+    from qgs_jax.tensors.qgtensor import QgsTensor
+    from qgs_jax.ops.contraction import make_tendency_fns
 
     pars = QgParams({'rr': 287.e0, 'sb': 5.6e-8})
     pars.set_atmospheric_channel_fourier_modes(6, 6)
@@ -125,7 +125,7 @@ def test_backward_integration_roundtrip():
 def test_native_kernels_bitwise_parity():
     """The C++ kernels must reproduce the Python reference-semantics loops
     bit-for-bit (same storage-order accumulation, FP contraction disabled)."""
-    from qgs_tpu import native
+    from qgs_jax import native
     if not native.available():
         pytest.skip("no C++ toolchain")
     pars = _maooam_params()
@@ -137,7 +137,7 @@ def test_native_kernels_bitwise_parity():
     assert np.array_equal(Dfn_c(0., x), Dfn_p(0., x))
 
     # native RK4 vs python-loop RK4 (same tableau arithmetic)
-    from qgs_tpu.models.numpy_backend import integrate_runge_kutta_numpy
+    from qgs_jax.models.numpy_backend import integrate_runge_kutta_numpy
     _, y_py = integrate_runge_kutta_numpy(fn_p, 0., 10., 0.1, x, write_steps=0)
     y_c, rec = native.rk4_integrate(tensor.tensor, x, 0.1, 100, write_steps=10)
     assert np.allclose(y_c, y_py, rtol=1e-13, atol=1e-15)
@@ -147,7 +147,7 @@ def test_native_kernels_bitwise_parity():
 
 def test_jax_trajectory_matches_native_oracle():
     """Fidelity gate against the fast native oracle over 10k RK4 steps."""
-    from qgs_tpu import native
+    from qgs_jax import native
     if not native.available():
         pytest.skip("no C++ toolchain")
     pars = _maooam_params()
@@ -161,11 +161,10 @@ def test_jax_trajectory_matches_native_oracle():
 
 def test_f32_dtype_preserved_through_scan():
     """f32 states must stay f32 through the scan integrators: the traced
-    f64 (t, dt) pairs used to promote the carry, which on TPU silently
-    falls into the ~60x-slower emulated-f64 path (and broke lax.scan carry
-    typing for f32 ensembles)."""
+    f64 (t, dt) pairs used to promote the carry, which silently ran the
+    f32 tier in f64 (and broke lax.scan carry typing for f32 ensembles)."""
     import jax.numpy as jnp
-    from qgs_tpu.integrators.rk import integrate_runge_kutta_tgls
+    from qgs_jax.integrators.rk import integrate_runge_kutta_tgls
 
     pars = _maooam_params()
     f, Df = create_tendencies(pars, dtype=jnp.float32)
@@ -185,10 +184,10 @@ def test_dimension_autoprobe():
     """ic=None infers ndim from the tendency function and integrates a zero
     IC (ref ``qgs/integrators/integrate.py:131-143``)."""
     import jax.numpy as jnp
-    from qgs_tpu.integrators.rk import infer_ndim, integrate_runge_kutta
-    from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
+    from qgs_jax.integrators.rk import infer_ndim, integrate_runge_kutta
+    from qgs_jax.integrators.integrator import RungeKuttaIntegrator
 
-    from qgs_tpu.models.tendencies import create_tendencies
+    from qgs_jax.models.tendencies import create_tendencies
     pars = _rp_params()
     f, Df = create_tendencies(pars)
     assert infer_ndim(f.batched) == pars.ndim
@@ -203,7 +202,7 @@ def test_dimension_autoprobe():
 
 
 def test_float_batch_chunking_identical():
-    """Single-float batch chunking past the f32 VMEM knee (the plain-path
+    """Single-float batch chunking past the f32 chunk threshold (the plain-path
     analogue of the df chunking, ``QGS_F32_BATCH_CHUNK``): chunked
     integration is BIT-identical to the unchunked program (per-member
     arithmetic is unchanged), odd batches are zero-padded/sliced, and

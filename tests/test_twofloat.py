@@ -1,18 +1,17 @@
 """Double-float (two-float32) arithmetic and contraction: error-free
-transformation correctness, contraction accuracy vs float64, and the fused
-Pallas kernel's equivalence (interpret mode on CPU)."""
+transformation correctness and contraction accuracy vs float64."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qgs_tpu.ops.twofloat import (
+from qgs_jax.ops.twofloat import (
     two_sum, two_prod, split, df_add, df_mul, df_from_f64, df_to_f64,
     make_df_quadratic, make_df_rk4_step,
 )
-from qgs_tpu.params.params import QgParams
-from qgs_tpu.models.tendencies import create_tendencies
+from qgs_jax.params.params import QgParams
+from qgs_jax.models.tendencies import create_tendencies
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +73,7 @@ def test_df_contraction_accuracy(maooam):
     # absolute criterion: several tendency components are ~1e-6 with heavy
     # cancellation, so a relative bound only measures the denominator.  On
     # the CPU backend (which strips the EFT barriers) the bucketed layout
-    # achieves ~2e-12 absolute; on TPU the same kernel measures ~6e-16
+    # achieves ~2e-12 absolute; tests/test_gpu.py holds the card to 1e-12
     # after 100 full RK4 steps.
     assert np.abs(fx_df - fx_64).max() < 5e-12, np.abs(fx_df - fx_64).max()
 
@@ -106,13 +105,13 @@ def test_df_contraction_any_row_width():
         quad = make_df_quadratic(T, accumulate=accumulate)
         out = np.asarray(df_to_f64(jax.jit(quad)(df_from_f64(jnp.asarray(x)))))
         rel = np.abs(out - ref).max() / np.abs(ref).max()
-        # 'fast' carries the CPU-backend barrier-stripping penalty (~1e-8);
-        # on TPU both are ~1e-14 (see make_df_quadratic docstring)
+        # 'fast' carries the CPU-backend barrier-stripping penalty (~1e-8)
+        # (see make_df_quadratic docstring)
         assert rel < (1e-12 if accumulate == "strict" else 1e-6), (accumulate, rel)
 
 
 def test_df_rk4_trajectory(maooam):
-    from qgs_tpu.integrators.rk import integrate_runge_kutta
+    from qgs_jax.integrators.rk import integrate_runge_kutta
     pars, f, tensor = maooam
     rng = np.random.default_rng(3)
     x = rng.random((4, pars.ndim)) * 0.05
@@ -128,37 +127,14 @@ def test_df_rk4_trajectory(maooam):
     assert np.abs(y_df - np.asarray(y64)).max() < 1e-8
 
 
-def test_pallas_kernel_matches_twofloat(maooam):
-    from qgs_tpu.ops.pallas_kernels import make_pallas_df_rk4
-    pars, f, tensor = maooam
-    rng = np.random.default_rng(4)
-    x = rng.random((8, pars.ndim)) * 0.05
-    y0 = df_from_f64(jnp.asarray(x))
-
-    run = make_pallas_df_rk4(tensor.tensor, 0.1, n_steps=10, batch_block=4,
-                             interpret=True)
-    oh, ol = run(*y0)
-
-    step = make_df_rk4_step(tensor.tensor, 0.1)
-    y = y0
-    for _ in range(10):
-        y = step(y)
-    # XLA:CPU strips optimization barriers and FMA-contracts inside fusions,
-    # so compiled and eager double-float steps differ at the ~1e-11/step
-    # level on the CPU backend (the TPU backend honors the barriers); both
-    # remain far below f32 accuracy.
-    assert np.abs(np.asarray(df_to_f64((oh, ol)))
-                  - np.asarray(df_to_f64(y))).max() < 1e-8
-
-
 def test_df_tangent_contraction_exact(maooam):
     """The df tangent contraction must reproduce the dense f64 J(x) @ dm
     product at (near-)machine level for a single evaluation — adjoint and
     inverse variants included (ref ``qgs/integrators/integrate.py:227-231``)."""
-    from qgs_tpu.ops.twofloat import make_df_tangent_contraction
+    from qgs_jax.ops.twofloat import make_df_tangent_contraction
 
     pars, f, tensor = maooam
-    from qgs_tpu.ops.contraction import make_tendency_fns
+    from qgs_jax.ops.contraction import make_tendency_fns
     _, jac_b = make_tendency_fns(tensor.tensor, tensor.jacobian_tensor)
 
     rng = np.random.default_rng(6)
@@ -187,13 +163,13 @@ def test_df_tangent_contraction_exact(maooam):
 def test_df_tgls_integration(maooam):
     """Fused df TGLS RK4 vs the f64 oracle over 100 steps: trajectory and
     fundamental matrix must track far below f32 accuracy (CPU backend
-    strips the EFT barriers -> ~1e-9 absolute here; ~1e-13 on TPU)."""
-    from qgs_tpu.integrators.rk import (integrate_runge_kutta,
+    strips the EFT barriers -> ~1e-9 absolute here)."""
+    from qgs_jax.integrators.rk import (integrate_runge_kutta,
                                         integrate_runge_kutta_tgls,
                                         integrate_runge_kutta_tgls_df)
 
     pars, f, tensor = maooam
-    from qgs_tpu.ops.contraction import make_tendency_fns
+    from qgs_jax.ops.contraction import make_tendency_fns
     _, jac_b = make_tendency_fns(tensor.tensor, tensor.jacobian_tensor)
 
     rng = np.random.default_rng(7)
@@ -232,11 +208,11 @@ def test_df_tgls_integration(maooam):
 
 def test_df_tgls_integrator_class(maooam):
     """RungeKuttaTglsIntegrator(precision='twofloat') end-to-end plumbing."""
-    from qgs_tpu.integrators.integrator import RungeKuttaTglsIntegrator
-    from qgs_tpu.integrators.rk import integrate_runge_kutta
+    from qgs_jax.integrators.integrator import RungeKuttaTglsIntegrator
+    from qgs_jax.integrators.rk import integrate_runge_kutta
 
     pars, f, tensor = maooam
-    from qgs_tpu.models.tendencies import create_tendencies as _ct
+    from qgs_jax.models.tendencies import create_tendencies as _ct
     rng = np.random.default_rng(8)
     ic = rng.random((2, pars.ndim)) * 0.05
     _, ic = integrate_runge_kutta(f.batched, 0., 100., 0.1, ic, write_steps=0)
@@ -268,11 +244,10 @@ def test_cholqr_df(maooam):
     R and Q accurate to ~eps32^2 per factorization (unit check), and the
     window pipeline's exponent stream must track the f64-Householder
     reference (CPU strict-mode df carries ~1e-11/op barrier-stripping
-    noise, so the 400-window tolerance here is loose; on TPU the same
-    comparison sits at the df noise floor)."""
-    from qgs_tpu.ops.twofloat import cholqr_df
-    from qgs_tpu.toolbox.lyapunov import make_window_step_df
-    from qgs_tpu.integrators.rk import integrate_runge_kutta
+    noise, so the 400-window tolerance here is loose)."""
+    from qgs_jax.ops.twofloat import cholqr_df
+    from qgs_jax.toolbox.lyapunov import make_window_step_df
+    from qgs_jax.integrators.rk import integrate_runge_kutta
 
     rng = np.random.default_rng(0)
     Qb = np.linalg.qr(rng.standard_normal((4, 20, 20)))[0]
@@ -326,7 +301,7 @@ def test_df_arbitrary_tableau(maooam):
     Butcher tableau (the reference integrates arbitrary tableaux at full
     precision, ref ``qgs/integrators/integrate.py:29``).  RK2 (Heun) df
     vs ambient-f64 RK2 over 50 steps."""
-    from qgs_tpu.integrators.rk import (integrate_runge_kutta,
+    from qgs_jax.integrators.rk import (integrate_runge_kutta,
                                         integrate_runge_kutta_df,
                                         rk2_tableau)
 
@@ -351,8 +326,8 @@ def test_df_arbitrary_tableau(maooam):
 def test_df_integrator_rk2_precision_twofloat(maooam):
     """RungeKuttaIntegrator(precision='twofloat') with a non-RK4 tableau
     (formerly rejected); implicit tableaux still raise."""
-    from qgs_tpu.integrators.integrator import RungeKuttaIntegrator
-    from qgs_tpu.integrators.rk import rk2_tableau
+    from qgs_jax.integrators.integrator import RungeKuttaIntegrator
+    from qgs_jax.integrators.rk import rk2_tableau
 
     pars, f, tensor = maooam
     a2, b2, c2 = rk2_tableau()
@@ -373,13 +348,13 @@ def test_df_integrator_rk2_precision_twofloat(maooam):
 
 
 def test_df_batch_chunking_padded_and_scaled(maooam):
-    """Batch chunking past the VMEM knee (KNEE_r05): odd batches are
+    """Batch chunking past the chunk threshold: odd batches are
     zero-padded to equal lax.map chunks (not silently unchunked), results
     match the unchunked program to the backend's EFT noise, and a
     mesh-sharded run scales the per-device knee by batch_devices (here 8
     virtual devices x 4096 > B, so the program stays unchunked)."""
     import os
-    from qgs_tpu.integrators.rk import integrate_runge_kutta_df
+    from qgs_jax.integrators.rk import integrate_runge_kutta_df
 
     pars, f, tensor = maooam
     rng = np.random.default_rng(0)

@@ -74,27 +74,26 @@ CATALOG = {
         "`manual_ocean_basis_setting`)."),
     "ensemble_statistics.py": (
         "ensemble_statistics.ipynb",
-        "Device-sharded ensembles and trajectory statistics — the TPU-native "
+        "Device-sharded ensembles and trajectory statistics — the mesh "
         "replacement of the reference's one-process-per-trajectory pools."),
     "kernel_selection.py": (
         "kernel_selection.ipynb",
-        "How the tendency contraction maps onto TPU hardware: the "
-        "count-bucketed gather kernel, the dense MXU path, pair-factored "
+        "How the tendency contraction maps onto the device: the "
+        "count-bucketed gather kernel, the dense matmul path, pair-factored "
         "quartics, and operand threading (no recompile across parameter "
-        "sets) — TPU-specific; no reference counterpart."),
+        "sets) — no reference counterpart."),
     "precision_tiers.py": (
         "precision_tiers.ipynb",
         "The three device precision tiers (float32, double-float 2xf32, "
-        "emulated float64) and their accuracy/throughput trade-offs — "
-        "TPU-specific; no reference counterpart."),
+        "float64) and their accuracy/throughput trade-offs — no reference "
+        "counterpart."),
     "distributed_ensembles.py": (
         "distributed_ensembles.ipynb",
-        "The multi-host (DCN x ICI) distributed layer: the "
-        "('ensemble', 'model') device mesh, mode-sharded tendencies with "
-        "psum on the model axis, and a genuine 2-process "
-        "`jax.distributed` run — the pod-scale replacement of the "
-        "reference's single-node process pools (TPU-native; no reference "
-        "counterpart)."),
+        "The multi-process distributed layer: the "
+        "('ensemble', 'model') device mesh, mode-sharded tendencies on the "
+        "model axis, and a genuine 2-process `jax.distributed` run — the "
+        "multi-host replacement of the reference's single-node process "
+        "pools (no reference counterpart)."),
     "external_solvers.py": (
         "external_solvers.ipynb",
         "Feeding the `f(t, x)` tendency contract to external ODE suites "
